@@ -13,16 +13,13 @@ if REPO not in sys.path:
 
 
 def enable_compile_cache() -> str:
-    """Persistent compilation cache for the benches (reconnect-stable key,
-    utils/compcache.py): the workload benches carry minutes of one-time
-    Pallas/XLA compiles that should never be repaid. Called from
-    load_or_make_bench_keys — i.e. when a bench actually RUNS — rather
-    than at import: the unit-test session imports bench modules for
-    their tables/flows, and globally enabling the cache there makes
-    jax try to serialize GB-scale CPU test executables (observed
-    segfaulting inside put_executable_and_time on the bg10-Karatsuba
-    CPU program)."""
-    from cufhe_tpu.utils import compcache
+    """Persistent compilation cache for the benches (utils/compcache.py):
+    the workload benches carry one-time XLA compiles that should not be
+    repaid. Called from load_or_make_bench_keys — i.e. when a bench
+    actually RUNS — rather than at import: the unit-test session imports
+    bench modules for their tables/flows, and globally enabling the cache
+    there would make jax serialize every CPU test executable."""
+    from cufhe_jax.utils import compcache
     return compcache.enable()
 
 
@@ -32,8 +29,8 @@ def load_or_make_bench_keys(pname: str):
     need their own keys, see CLAUDE.md). Also enables the persistent
     compilation cache: every caller is a bench about to compile."""
     enable_compile_cache()
-    from cufhe_tpu import PRESETS, golden as G
-    from cufhe_tpu.utils import serialization as S
+    from cufhe_jax import PRESETS, golden as G
+    from cufhe_jax.utils import serialization as S
 
     cache = os.path.join(REPO, ".bench_keys_128.npz"
                          if pname == "tfhepp_128bit"

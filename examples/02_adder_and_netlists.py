@@ -21,8 +21,8 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")   # TINY demo: CPU is plenty
 
-from cufhe_tpu import TINY, golden as G
-from cufhe_tpu.models import Context, circuits, decrypt_bits, encrypt_bits
+from cufhe_jax import TINY, golden as G
+from cufhe_jax.models import Context, circuits, decrypt_bits, encrypt_bits
 
 rng = np.random.default_rng(7)
 sk = G.keygen(TINY, seed=1)
@@ -49,7 +49,7 @@ print(f"circuits.ripple_carry_add: {batch} encrypted 8-bit additions OK")
 # (arbitrary circuits import the same way from Bristol Fashion text via
 #  runtime.load_bristol/compile_bristol — benchmarks/aes.py runs a full
 #  46,704-gate AES-128 through this path)
-from cufhe_tpu.runtime import build_ripple_adder, run_schedule
+from cufhe_jax.runtime import build_ripple_adder, run_schedule
 
 cb, wires = build_ripple_adder(nbits)       # C++ graph builder
 sched = cb.compile()                        # levelize + DCE + schedule
@@ -68,9 +68,9 @@ print(f"runtime scheduler netlist: {batch} additions OK "
 # encrypted evaluation.
 import hashlib
 
-from cufhe_tpu.runtime import netlists as NL
-from cufhe_tpu.runtime.bristol import compile_bristol
-from cufhe_tpu.runtime.executor import simulate_schedule
+from cufhe_jax.runtime import netlists as NL
+from cufhe_jax.runtime.bristol import compile_bristol
+from cufhe_jax.runtime.executor import simulate_schedule
 
 sha_sched, _ = compile_bristol(NL.sha256_block_bristol())
 msg = b"hello, homomorphic world"

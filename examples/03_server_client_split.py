@@ -15,17 +15,17 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-# simulate a multi-chip deployment on CPU (remove these lines on a real
-# TPU slice — jax.devices() is the mesh)
+# simulate a multi-device deployment on CPU (remove these lines on a real
+# multi-GPU host — jax.devices() is the mesh)
 os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=4")
 import jax
 
 jax.config.update("jax_platforms", "cpu")
 from jax.sharding import Mesh, NamedSharding, PartitionSpec
 
-from cufhe_tpu import TINY, golden as G
-from cufhe_tpu.models import Context, Ctxt, decrypt_bits, encrypt_bits
-from cufhe_tpu.utils import serialization as S
+from cufhe_jax import TINY, golden as G
+from cufhe_jax.models import Context, Ctxt, decrypt_bits, encrypt_bits
+from cufhe_jax.utils import serialization as S
 
 workdir = tempfile.mkdtemp()
 rng = np.random.default_rng(11)

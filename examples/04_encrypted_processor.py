@@ -10,7 +10,7 @@ branch was taken — every cycle evaluates all paths and muxes under
 encryption.
 
 The batch axis runs B *different* encrypted programs per evaluation — the
-TPU analogue of the reference's streams (one program per lane).
+batched analogue of the reference's streams (one program per lane).
 
 Run:  python examples/04_encrypted_processor.py    # TINY params, CPU-fast
 """
@@ -24,8 +24,8 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")   # TINY demo: CPU is plenty
 
-from cufhe_tpu import TINY, golden as G
-from cufhe_tpu.models import Context, processor as TOY
+from cufhe_jax import TINY, golden as G
+from cufhe_jax.models import Context, processor as TOY
 
 rng = np.random.default_rng(11)
 sk = G.keygen(TINY, seed=1)

@@ -19,9 +19,9 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")   # TINY demo: CPU is plenty
 
-from cufhe_tpu import TINY, golden as G
-from cufhe_tpu.models import circuits
-from cufhe_tpu.models.api import Context, TrlweCtxt, decrypt_bits
+from cufhe_jax import TINY, golden as G
+from cufhe_jax.models import circuits
+from cufhe_jax.models.api import Context, TrlweCtxt, decrypt_bits
 
 rng = np.random.default_rng(19)
 sk = G.keygen(TINY, seed=1)

@@ -19,8 +19,8 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")   # TINY demo: CPU is plenty
 
-from cufhe_tpu import TINY, golden as G
-from cufhe_tpu.models import (Context, IntContext, decrypt_bits,
+from cufhe_jax import TINY, golden as G
+from cufhe_jax.models import (Context, IntContext, decrypt_bits,
                               decrypt_uint, encrypt_uint)
 
 rng = np.random.default_rng(23)

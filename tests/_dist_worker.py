@@ -8,7 +8,7 @@ reference's per-GPU key upload, bootstrap_gpu.cu:115-137), feeds its local
 shard of a global ciphertext batch, runs the shard_map'd gate program, and
 verifies its local output rows against the golden model. No collectives
 are needed by the gate path, so the only cross-process interaction is
-jax.distributed device enumeration — the TPU-pod topology in miniature.
+jax.distributed device enumeration — the multi-host topology in miniature.
 """
 import os
 import sys
@@ -31,11 +31,11 @@ def main():
 
     REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, REPO)
-    from cufhe_tpu import golden as G
-    from cufhe_tpu import params as P
-    from cufhe_tpu.ops import bootstrap as B
-    from cufhe_tpu.ops import keys as K
-    from cufhe_tpu.parallel import mesh as M
+    from cufhe_jax import golden as G
+    from cufhe_jax import params as P
+    from cufhe_jax.ops import bootstrap as B
+    from cufhe_jax.ops import keys as K
+    from cufhe_jax.parallel import mesh as M
 
     p = P.TINY
     sk = G.keygen(p, seed=7)

@@ -21,8 +21,14 @@ jax.config.update("jax_platforms", "cpu")
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
-from cufhe_tpu import golden as G  # noqa: E402
-from cufhe_tpu import params as P  # noqa: E402
+from cufhe_jax import golden as G  # noqa: E402
+from cufhe_jax import params as P  # noqa: E402
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a GPU; skips where none is present "
+        "(python -m pytest tests/ -m gpu)")
 
 
 @pytest.fixture(scope="session")

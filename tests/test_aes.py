@@ -11,9 +11,9 @@ import os
 import numpy as np
 import pytest
 
-from cufhe_tpu.runtime import netlists as NL
-from cufhe_tpu.runtime.bristol import compile_bristol
-from cufhe_tpu.runtime.executor import allocate_slots, simulate_schedule
+from cufhe_jax.runtime import netlists as NL
+from cufhe_jax.runtime.bristol import compile_bristol
+from cufhe_jax.runtime.executor import allocate_slots, simulate_schedule
 
 FIPS_PT = bytes.fromhex("00112233445566778899aabbccddeeff")
 FIPS_KEY = bytes.fromhex("000102030405060708090a0b0c0d0e0f")
@@ -70,11 +70,11 @@ def test_aes_slot_allocation_scales(aes_sched):
 
 @pytest.mark.skipif(not os.environ.get("CUFHE_RUN_SLOW"),
                     reason="encrypted AES ~7 min; set CUFHE_RUN_SLOW=1 "
-                           "(benchmarks/aes.py runs it on TPU)")
+                           "(benchmarks/aes.py runs it on the GPU)")
 def test_aes_encrypted_tiny(aes_sched, tiny_key, rng):
     """Full encrypted AES-128 at TINY params (deterministic), B=2."""
-    from cufhe_tpu.models.api import Context, decrypt_bits, encrypt_bits
-    from cufhe_tpu.runtime.executor import run_schedule
+    from cufhe_jax.models.api import Context, decrypt_bits, encrypt_bits
+    from cufhe_jax.runtime.executor import run_schedule
     sk, ek = tiny_key
     ctx = Context(ek)
     pts = [bytes(rng.integers(0, 256, 16, dtype=np.uint8)) for _ in range(2)]

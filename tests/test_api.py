@@ -4,10 +4,10 @@ import pytest
 
 import jax
 
-from cufhe_tpu import golden as G
-from cufhe_tpu.models import Context, decrypt_bits, encrypt_bits
-from cufhe_tpu.models import circuits as C
-from cufhe_tpu.parallel import data_mesh
+from cufhe_jax import golden as G
+from cufhe_jax.models import Context, decrypt_bits, encrypt_bits
+from cufhe_jax.models import circuits as C
+from cufhe_jax.parallel import data_mesh
 
 
 @pytest.fixture(scope="module")
@@ -75,8 +75,8 @@ def test_mesh_sharded_matches_unsharded(tiny_key, rng):
 
 def test_subtract_compare_popcount_circuits(ctx, tiny_key, rng):
     """models.circuits: two's-complement subtract, less_than, popcount."""
-    from cufhe_tpu.models import circuits as C
-    from cufhe_tpu.models.api import decrypt_bits, encrypt_bits
+    from cufhe_jax.models import circuits as C
+    from cufhe_jax.models.api import decrypt_bits, encrypt_bits
     sk, _ = tiny_key
     nbits, B = 3, 4
     a_vals = rng.integers(0, 8, B)
@@ -99,8 +99,8 @@ def test_subtract_compare_popcount_circuits(ctx, tiny_key, rng):
 
 def test_multiply_circuit(ctx, tiny_key, rng):
     """models.circuits.multiply: carry-save n x m product vs integers."""
-    from cufhe_tpu.models import circuits as C
-    from cufhe_tpu.models.api import decrypt_bits, encrypt_bits
+    from cufhe_jax.models import circuits as C
+    from cufhe_jax.models.api import decrypt_bits, encrypt_bits
     sk, _ = tiny_key
     B = 4
     a_vals = rng.integers(0, 8, B)        # 3-bit
@@ -118,7 +118,7 @@ def test_gate_chain_matches_looped_gates(ctx, tiny_key, rng):
     bit-identical to the same number of separate gate() calls."""
     import jax
 
-    from cufhe_tpu.models.api import encrypt_bits
+    from cufhe_jax.models.api import encrypt_bits
     sk, _ = tiny_key
     bits_a = rng.integers(0, 2, 8)
     bits_b = rng.integers(0, 2, 8)
@@ -137,7 +137,7 @@ def test_gate_chain_heterogeneous(ctx, tiny_key, rng):
     bit-identical to the same sequence of separate gate() calls."""
     import jax
 
-    from cufhe_tpu.models.api import encrypt_bits
+    from cufhe_jax.models.api import encrypt_bits
     sk, _ = tiny_key
     a = encrypt_bits(rng.integers(0, 2, 8), sk, rng)
     b = encrypt_bits(rng.integers(0, 2, 8), sk, rng)
@@ -151,7 +151,7 @@ def test_gate_chain_heterogeneous(ctx, tiny_key, rng):
 
 
 def test_gate_chain_requires_depth_for_single_name(tiny_key, rng):
-    from cufhe_tpu.models.api import Context, encrypt_bits
+    from cufhe_jax.models.api import Context, encrypt_bits
 
     sk, ek = tiny_key
     ctx = Context(ek)

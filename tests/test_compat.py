@@ -3,8 +3,8 @@ Decrypt/gate shape, test_api_gpu.cu:84-190) ported mechanically."""
 import numpy as np
 import pytest
 
-import cufhe_tpu.compat as cf
-from cufhe_tpu import TINY
+import cufhe_jax.compat as cf
+from cufhe_jax import TINY
 
 
 @pytest.fixture(scope="module")

@@ -1,7 +1,7 @@
 """Multi-process distributed gate evaluation (the multi-host story).
 
 The reference tops out at 2 GPUs in ONE process with replicated keys
-(test_gate_gpu_multi.cc:36-85); the TPU-native equivalent is multiple
+(test_gate_gpu_multi.cc:36-85); the JAX equivalent is multiple
 host processes forming one global device mesh via jax.distributed
 (SURVEY.md §5 "distributed communication backend"). This spawns two real
 processes, each owning 4 CPU devices of an 8-device global mesh, and has

@@ -1,12 +1,12 @@
 """Golden-model self-consistency: every gate decrypts to its truth table.
 
-This is the TPU analogue of the reference's decrypt-and-compare oracle tests
+This is the JAX analogue of the reference's decrypt-and-compare oracle tests
 (test/test_util.h:8-95, test/plain.h:10-69) run against the pure-NumPy model.
 """
 import numpy as np
 import pytest
 
-from cufhe_tpu import golden as G
+from cufhe_jax import golden as G
 
 TWO_INPUT = ["nand", "nor", "xnor", "and", "or", "xor",
              "andny", "andyn", "orny", "oryn"]

@@ -9,13 +9,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cufhe_tpu import golden as G
-from cufhe_tpu import params as P
-from cufhe_tpu.models import (Context, IntCodec, IntContext, decrypt_bits,
+from cufhe_jax import golden as G
+from cufhe_jax import params as P
+from cufhe_jax.models import (Context, IntCodec, IntContext, decrypt_bits,
                               decrypt_uint, encrypt_uint)
-from cufhe_tpu.models.integers import build_tv
-from cufhe_tpu.ops import bootstrap as B
-from cufhe_tpu.ops import keys as K
+from cufhe_jax.models.integers import build_tv
+from cufhe_jax.ops import bootstrap as B
+from cufhe_jax.ops import keys as K
 
 
 @pytest.fixture(scope="module")
@@ -26,8 +26,8 @@ def int_key():
 
 
 @pytest.fixture(scope="module")
-def int_pallas_key():
-    sk = G.keygen(P.PALLAS_TINY, seed=23)
+def int_n128_key():
+    sk = G.keygen(P.TINY_N128, seed=23)
     ek = G.make_eval_key(sk, seed=24)
     return sk, ek
 
@@ -52,11 +52,11 @@ def test_pbs_many_bitexact(backend, theta, int_key, rng):
     assert np.array_equal(got, want)
 
 
-def test_pbs_many_pallas_bitexact(int_pallas_key, rng):
-    """The production kernel path through the rounded mod switch."""
-    sk, ek = int_pallas_key
+def test_pbs_many_pallas_bitexact(int_n128_key, rng):
+    """The resolved ("auto") path through the rounded mod switch, at N=128."""
+    sk, ek = int_n128_key
     p = sk.params
-    keys = K.prepare_keys(ek, backends=("pallas",))
+    keys = K.prepare_keys(ek, backends=(B.resolve_backend("auto", p),))
     cts = [G.encrypt_bit(b, sk, rng) for b in (1, 0)]
     batch = jnp.asarray(np.stack(cts))
     tv = rng.integers(0, 1 << 32, p.lvl1.n,
@@ -64,7 +64,7 @@ def test_pbs_many_pallas_bitexact(int_pallas_key, rng):
     want = np.stack([G.pbs_many(c, tv, 2, ek, theta=1) for c in cts],
                     axis=1)
     got = np.asarray(B.pbs_many(batch, jnp.asarray(tv), 2, keys, p,
-                                "pallas", theta=1))
+                                "auto", theta=1))
     assert np.array_equal(got, want)
 
 
@@ -162,7 +162,7 @@ def test_select_min_max(int_ctx, rng):
 
 
 def test_signed_roundtrip_and_compare(int_ctx, rng):
-    from cufhe_tpu.models import decrypt_int, encrypt_int
+    from cufhe_jax.models import decrypt_int, encrypt_int
     sk, ictx = int_ctx
     xs, ys = [-3, 7, -8, 5], [2, -7, -8, 6]
     x = encrypt_int(xs, 4, sk, rng=rng)
@@ -182,7 +182,7 @@ def test_signed_roundtrip_and_compare(int_ctx, rng):
 
 
 def test_abs(int_ctx, rng):
-    from cufhe_tpu.models import decrypt_int, encrypt_int
+    from cufhe_jax.models import decrypt_int, encrypt_int
     sk, ictx = int_ctx
     xs = [-3, 7, -8, 0]                     # |-8| wraps to -8 (hardware)
     x = encrypt_int(xs, 4, sk, rng=rng)
@@ -233,10 +233,10 @@ def test_mul(int_ctx, rng):
     assert decrypt_uint(prod, sk) == [a * b for a, b in zip(xs, ys)]
 
 
-def test_msg_bits_2_experimental(int_pallas_key, rng):
+def test_msg_bits_2_experimental(int_n128_key, rng):
     """Radix-4 digits (b=3) on the wider tiny set: the experimental
     higher-throughput codec stays correct where rounding noise allows."""
-    sk, ek = int_pallas_key
+    sk, ek = int_n128_key
     codec = IntCodec(msg_bits=2)
     ictx = IntContext(Context(ek, backend="conv"), codec)
     xs, ys = [123, 250], [45, 6]
@@ -292,7 +292,7 @@ def test_m2_eq(int2_ctx, rng):
 
 
 def test_m2_signed_compare_and_abs(int2_ctx, rng):
-    from cufhe_tpu.models import decrypt_int, encrypt_int
+    from cufhe_jax.models import decrypt_int, encrypt_int
     sk, ictx = int2_ctx
     codec = ictx.codec
     xs, ys = [-3, 7, -8, 5], [2, -7, -8, 6]

@@ -8,9 +8,9 @@ selected word equals the plaintext table entry for every address.
 """
 import numpy as np
 
-from cufhe_tpu import golden as G
-from cufhe_tpu.models import circuits
-from cufhe_tpu.models.api import Context, TrlweCtxt
+from cufhe_jax import golden as G
+from cufhe_jax.models import circuits
+from cufhe_jax.models.api import Context, TrlweCtxt
 
 
 def _setup(sk, rng, d, words):
@@ -54,7 +54,7 @@ def test_cmux_tree_matches_golden_and_plaintext(tiny_key, rng):
 def test_cmux_tree_selected_word_feeds_gate_path(tiny_key, rng):
     """Integration: tree-select a word, sample-extract+keyswitch slot 0
     back to lvl0, and decrypt — the full encrypted-ROM-read round trip."""
-    from cufhe_tpu.models.api import decrypt_bits
+    from cufhe_jax.models.api import decrypt_bits
 
     sk, ek = tiny_key
     lp = sk.params.lvl1
@@ -89,7 +89,7 @@ def test_cmux_tree_rejects_size_mismatch(tiny_key, rng):
 def test_vertical_packing_full_read(tiny_key, rng):
     """2 tree bits x 2 word bits = 16-bit encrypted table; every address
     reads back its plaintext bit through the full vertical-packing path."""
-    from cufhe_tpu.models.api import decrypt_bits
+    from cufhe_jax.models.api import decrypt_bits
 
     sk, ek = tiny_key
     lp = sk.params.lvl1

@@ -1,10 +1,10 @@
-"""Multi-device coverage of the PRODUCTION (Pallas) path.
+"""Multi-device coverage of the production ("auto") path.
 
 The reference's multi-GPU gate test (test_gate_gpu_multi.cc:36-85) runs the
 real bootstrap kernel on every device. Here the equivalent property is that
-the fused Pallas blind-rotation kernel partitions over the data axis of an
-8-device mesh via shard_map — bit-identically to the unsharded program, with
-zero inter-device collectives in the compiled HLO (gate evaluation is
+the gate program partitions over the data axis of an 8-device mesh via
+shard_map — bit-identically to the unsharded program, with zero
+inter-device collectives in the compiled HLO (gate evaluation is
 embarrassingly parallel; keys are replicated).
 """
 import jax
@@ -12,28 +12,28 @@ import numpy as np
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec
 
-from cufhe_tpu import golden as G
-from cufhe_tpu import params as P
-from cufhe_tpu.models.api import Context, Ctxt, decrypt_bits, encrypt_bits
-from cufhe_tpu.ops import bootstrap as B
-from cufhe_tpu.parallel.mesh import data_mesh, data_parallel
+from cufhe_jax import golden as G
+from cufhe_jax import params as P
+from cufhe_jax.models.api import Context, Ctxt, decrypt_bits, encrypt_bits
+from cufhe_jax.ops import bootstrap as B
+from cufhe_jax.parallel.mesh import data_mesh, data_parallel
 
 COLLECTIVES = ("all-reduce", "all-gather", "all-to-all", "collective-permute",
                "reduce-scatter")
 
 
 @pytest.fixture(scope="module")
-def pallas_key():
-    sk = G.keygen(P.PALLAS_TINY, seed=11)
+def n128_key():
+    sk = G.keygen(P.TINY_N128, seed=11)
     ek = G.make_eval_key(sk, seed=12)
     return sk, ek
 
 
-def test_pallas_gate_sharded_matches_unsharded(pallas_key, rng):
-    """PALLAS_TINY resolves backend 'auto' -> 'pallas' (N=128): this runs
-    the production kernel per-shard on all 8 devices."""
-    sk, ek = pallas_key
-    assert B.resolve_backend("auto", ek.params) == "pallas"
+def test_pallas_gate_sharded_matches_unsharded(n128_key, rng):
+    """TINY_N128 (N=128) on the resolved path: this runs the production
+    gate program per-shard on all 8 devices."""
+    sk, ek = n128_key
+    assert B.resolve_backend("auto", ek.params) in B.BACKENDS
     assert len(jax.devices()) == 8
     mesh = data_mesh()
     ctx_m = Context(ek, mesh=mesh)
@@ -50,11 +50,11 @@ def test_pallas_gate_sharded_matches_unsharded(pallas_key, rng):
         [1 - (x & y) for x, y in zip(bits0, bits1)]
 
 
-def test_pallas_gate_sharded_no_collectives(pallas_key, rng):
+def test_pallas_gate_sharded_no_collectives(n128_key, rng):
     """The sharded gate program must contain zero collective ops — the
     ≥80%-scaling story rests on gate eval being communication-free
     (SURVEY.md §2 parallelism table)."""
-    sk, ek = pallas_key
+    sk, ek = n128_key
     mesh = data_mesh()
     ctx = Context(ek, mesh=mesh)
     a = encrypt_bits([1] * 16, sk, rng)
@@ -70,10 +70,10 @@ def test_pallas_gate_sharded_no_collectives(pallas_key, rng):
 
 
 def test_pallas_k2_sharded_matches_unsharded(rng):
-    """CONCRETE-style k=2 shape through the sharded pallas path."""
-    sk = G.keygen(P.PALLAS_TINY_K2, seed=13)
+    """CONCRETE-style k=2 shape through the sharded resolved path."""
+    sk = G.keygen(P.TINY_K2_N128, seed=13)
     ek = G.make_eval_key(sk, seed=14)
-    assert B.resolve_backend("auto", ek.params) == "pallas"
+    assert B.resolve_backend("auto", ek.params) in B.BACKENDS
     mesh = data_mesh()
     ctx_m = Context(ek, mesh=mesh)
     ctx_s = Context(ek)
@@ -88,20 +88,20 @@ def test_pallas_k2_sharded_matches_unsharded(rng):
         [x ^ y for x, y in zip(bits0, bits1)]
 
 
-def test_data_parallel_preserves_output_sharding(pallas_key, rng):
+def test_data_parallel_preserves_output_sharding(n128_key, rng):
     """Direct shard_map wrap of gate_lvl0 (what dryrun_multichip runs)."""
-    sk, ek = pallas_key
+    sk, ek = n128_key
     p = ek.params
     mesh = data_mesh()
-    from cufhe_tpu.ops import keys as K
-    keys = jax.device_put(K.prepare_keys(ek, backends=("pallas",)),
-                          NamedSharding(mesh, PartitionSpec()))
+    from cufhe_jax.ops import keys as K
+    keys = jax.device_put(
+        K.prepare_keys(ek, backends=(B.resolve_backend("auto", p),)),
+        NamedSharding(mesh, PartitionSpec()))
     shard = NamedSharding(mesh, PartitionSpec("data"))
     a = jax.device_put(encrypt_bits([1] * 8, sk, rng).data, shard)
     b = jax.device_put(encrypt_bits([0, 1] * 4, sk, rng).data, shard)
 
-    fn = lambda x, y, k: B.gate_lvl0(G.GATE_CONSTANTS["nand"], x, y, k, p,
-                                     backend="pallas")
+    fn = lambda x, y, k: B.gate_lvl0(G.GATE_CONSTANTS["nand"], x, y, k, p)
     out = jax.jit(data_parallel(fn, mesh, (0, 1)))(a, b, keys)
     out.block_until_ready()
     assert out.sharding.spec == PartitionSpec("data")
@@ -110,10 +110,10 @@ def test_data_parallel_preserves_output_sharding(pallas_key, rng):
     assert np.array_equal(np.asarray(out), ref)
 
 
-def test_pbs_per_batch_tv_sharded_matches_unsharded(pallas_key, rng):
+def test_pbs_per_batch_tv_sharded_matches_unsharded(n128_key, rng):
     """A per-batch test vector ([B, N]) must shard WITH the ciphertext
     batch under a mesh Context; sharded == unsharded bit-exact."""
-    sk, ek = pallas_key
+    sk, ek = n128_key
     p = sk.params
     B = 16
     bits = rng.integers(0, 2, B)
@@ -126,10 +126,10 @@ def test_pbs_per_batch_tv_sharded_matches_unsharded(pallas_key, rng):
                           np.asarray(jax.device_get(mesh.data)))
 
 
-def test_gate_chain_sharded_matches_unsharded(pallas_key, rng):
+def test_gate_chain_sharded_matches_unsharded(n128_key, rng):
     """Fused dependent chains (lax.scan over the bootstrap) under a mesh
     Context: sharded == unsharded bit-exact."""
-    sk, ek = pallas_key
+    sk, ek = n128_key
     B = 16
     bits0 = rng.integers(0, 2, B)
     bits1 = rng.integers(0, 2, B)
@@ -142,13 +142,13 @@ def test_gate_chain_sharded_matches_unsharded(pallas_key, rng):
                           np.asarray(jax.device_get(mesh.data)))
 
 
-def test_integer_add_sharded_matches_unsharded(pallas_key, rng):
+def test_integer_add_sharded_matches_unsharded(n128_key, rng):
     """The encrypted-integer ripple adder (scanned pbs_many) under a mesh
     Context: word batch sharded over the data axis, sharded == unsharded
     bit-exact, and the decrypted sums correct."""
-    from cufhe_tpu.models import (IntContext, decrypt_uint, encrypt_uint)
+    from cufhe_jax.models import (IntContext, decrypt_uint, encrypt_uint)
 
-    sk, ek = pallas_key
+    sk, ek = n128_key
     B = 16
     mod = 1 << 4
     xs = [int(v) for v in rng.integers(0, mod, B)]
@@ -168,7 +168,7 @@ def test_run_schedule_loop_sharded_matches_unsharded(rng):
     """The scanned feedback loop (run_schedule_loop) under a mesh must be
     bit-identical to the unsharded loop — VERDICT r4 #6: the sequential-
     machine latency path must not refuse multi-chip Contexts."""
-    from cufhe_tpu.runtime import CircuitBuilder, run_schedule_loop
+    from cufhe_jax.runtime import CircuitBuilder, run_schedule_loop
 
     sk = G.keygen(P.TINY, seed=31)
     ek = G.make_eval_key(sk, seed=32)
@@ -198,7 +198,7 @@ def test_run_schedule_loop_sharded_matches_unsharded(rng):
 
 
 def test_run_schedule_loop_mesh_batch_divisibility(rng):
-    from cufhe_tpu.runtime import CircuitBuilder, run_schedule_loop
+    from cufhe_jax.runtime import CircuitBuilder, run_schedule_loop
 
     sk = G.keygen(P.TINY, seed=31)
     ek = G.make_eval_key(sk, seed=32)

@@ -31,8 +31,8 @@ def test_int_adder_noise_measurement_smoke():
     """Run the integer-layer measurement end-to-end on TINY params
     (alpha=0: zero noise, margin reflects only the mod-switch term) and
     check the record shape the suite gate consumes."""
-    import cufhe_tpu.params as P
-    from cufhe_tpu import golden as G
+    import cufhe_jax.params as P
+    from cufhe_jax import golden as G
     sk = G.keygen(P.TINY, seed=0)
     ek = G.make_eval_key(sk, seed=1)
     rec = noise.measure_int_adder_noise(P.TINY, backend="conv", batch=4,

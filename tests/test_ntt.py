@@ -8,7 +8,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from cufhe_tpu.ops import ntt
+from cufhe_jax.ops import ntt
 
 
 def naive_negacyclic_mod(a, b, p):
@@ -87,7 +87,7 @@ def test_torus_polymul_via_small_modulus(rng):
     error vs exact mod-2^32 convolution bounded by N * max|b| * switch-step
     (the documented accuracy tradeoff of the reference's
     USE_SMALL_NTT_MODULUS mode)."""
-    from cufhe_tpu.golden import negacyclic_polymul
+    from cufhe_jax.golden import negacyclic_polymul
     nbit, N = 10, 1024
     tab = ntt.make_tables(nbit)
     a = rng.integers(0, 1 << 32, N, dtype=np.uint64).astype(np.uint32)
@@ -127,9 +127,9 @@ def test_ntt_backend_gate(tiny_key):
     'ntt' blind-rotate backend decrypts to the truth table and its phase
     stays within the discretization-noise envelope of the exact path
     (the reference tests this mode decrypt-only, test_gate_gpu.cc)."""
-    from cufhe_tpu import golden as G
-    from cufhe_tpu.ops import bootstrap as B
-    from cufhe_tpu.ops import keys as K
+    from cufhe_jax import golden as G
+    from cufhe_jax.ops import bootstrap as B
+    from cufhe_jax.ops import keys as K
 
     # dedicated generator: the phase-envelope bound below is statistical
     # (two decorrelating noise paths), so this test must not move with

@@ -9,13 +9,13 @@ import pytest
 
 import jax.numpy as jnp
 
-from cufhe_tpu import golden as G
-from cufhe_tpu import params as P
-from cufhe_tpu.ops import bootstrap as B
-from cufhe_tpu.ops import keys as K
-from cufhe_tpu.ops import keyswitch as KS
-from cufhe_tpu.ops import limbs as L
-from cufhe_tpu.ops import poly as PO
+from cufhe_jax import golden as G
+from cufhe_jax import params as P
+from cufhe_jax.ops import bootstrap as B
+from cufhe_jax.ops import keys as K
+from cufhe_jax.ops import keyswitch as KS
+from cufhe_jax.ops import limbs as L
+from cufhe_jax.ops import poly as PO
 
 BACKENDS = ["conv", "toeplitz"]
 
@@ -246,29 +246,3 @@ def test_programmable_bootstrap_bitexact(backend, tiny_key, rng):
                                          p, backend))
     assert np.array_equal(ref, via_tv)
 
-
-def test_choose_batch_tile_mosaic_legal():
-    """Multi-tile grids must use a 128-multiple batch tile (Mosaic lane
-    rule); single-tile grids may use any bt == B. Odd batches pad to the
-    cheapest legal tiling (integer-divide select shapes hit this)."""
-    from cufhe_tpu.ops.bootstrap import choose_batch_tile
-    # single tile: any size
-    assert choose_batch_tile(1, 1024) == (1, 0)
-    assert choose_batch_tile(576, 1024) == (576, 0)
-    # clean multi-tile: biggest legal divisor
-    assert choose_batch_tile(4096, 1024) == (1024, 0)
-    assert choose_batch_tile(8448, 1024) == (256, 0)     # 33 x 256
-    assert choose_batch_tile(16896, 1024) == (512, 0)    # 33 x 512
-    assert choose_batch_tile(4096, 512) == (512, 0)
-    # odd multi-tile: NEVER a sub-128 tile; pad instead
-    bt, pad = choose_batch_tile(2112, 1024)              # 32-bit div select
-    assert bt % 128 == 0 and (2112 + pad) % bt == 0
-    assert (2112 + pad) == 2176 and bt == 128            # cheapest legal
-    bt, pad = choose_batch_tile(1056, 1024)
-    assert bt % 128 == 0 and (1056 + pad) % bt == 0
-    # every result is legal by construction across a sweep
-    for B in range(1025, 5000, 97):
-        for cap in (512, 1024):
-            bt, pad = choose_batch_tile(B, cap)
-            assert (B + pad) % bt == 0
-            assert bt == B + pad or bt % 128 == 0

@@ -9,8 +9,8 @@ fully encrypted end-to-end.
 import numpy as np
 import pytest
 
-from cufhe_tpu.models import processor as TOY
-from cufhe_tpu.runtime.executor import simulate_schedule
+from cufhe_jax.models import processor as TOY
+from cufhe_jax.runtime.executor import simulate_schedule
 
 
 def _sim_cycles(sched, programs, cycles):
@@ -83,7 +83,7 @@ def test_cycle_circuit_matches_interpreter(force_python):
 def test_processor_encrypted(tiny_key, rng):
     """Fully encrypted execution: 3 different encrypted programs run as
     batch lanes for 4 cycles; decrypted (ACC, PC) match the interpreter."""
-    from cufhe_tpu.models.api import Context
+    from cufhe_jax.models.api import Context
 
     sk, ek = tiny_key
     ctx = Context(ek)
@@ -100,7 +100,7 @@ def test_processor_encrypted(tiny_key, rng):
 def test_processor_scan_matches_loop(tiny_key, rng):
     """run_cycles(scan=True) — the whole multi-cycle run as ONE compiled
     program — is bit-identical to the per-cycle loop."""
-    from cufhe_tpu.models.api import Context
+    from cufhe_jax.models.api import Context
 
     sk, ek = tiny_key
     ctx = Context(ek)

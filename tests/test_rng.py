@@ -5,10 +5,10 @@ passes a seed."""
 import numpy as np
 import pytest
 
-import cufhe_tpu.params as P
-from cufhe_tpu import golden as G
-from cufhe_tpu import rng as R
-from cufhe_tpu.models.api import encrypt_bits, decrypt_bits
+import cufhe_jax.params as P
+from cufhe_jax import golden as G
+from cufhe_jax import rng as R
+from cufhe_jax.models.api import encrypt_bits, decrypt_bits
 
 
 def test_integers_bounds_and_dtype():

@@ -9,9 +9,9 @@ a plaintext oracle, and stream completion-polling semantics
 import numpy as np
 import pytest
 
-from cufhe_tpu import golden as G
-from cufhe_tpu.models import Context, Ctxt, decrypt_bits, encrypt_bits
-from cufhe_tpu.runtime import (CircuitBuilder, Stream, build_ripple_adder,
+from cufhe_jax import golden as G
+from cufhe_jax.models import Context, Ctxt, decrypt_bits, encrypt_bits
+from cufhe_jax.runtime import (CircuitBuilder, Stream, build_ripple_adder,
                                native_available, run_schedule, stream_query,
                                synchronize, trivial_ciphertext)
 
@@ -168,7 +168,7 @@ def test_streams_execute_on_their_devices(tiny_key, rng):
 def test_bristol_two_bit_adder(tiny_key, rng):
     """Parse and execute a hand-written Bristol Fashion 2-bit adder
     (a + b -> 3-bit sum) against plaintext addition."""
-    from cufhe_tpu.runtime.bristol import compile_bristol
+    from cufhe_jax.runtime.bristol import compile_bristol
     # 2-bit adder: inputs a0 a1 (wires 0,1), b0 b1 (2,3); outputs s0 s1 s2
     # = wires 13,14,15 of 16.
     text = """\
@@ -188,7 +188,7 @@ def test_bristol_two_bit_adder(tiny_key, rng):
     sched, meta = compile_bristol(text)
     assert meta["input_widths"] == [2, 2]
     sk, ek = tiny_key
-    from cufhe_tpu.models import Context, decrypt_bits, encrypt_bits
+    from cufhe_jax.models import Context, decrypt_bits, encrypt_bits
     ctx = Context(ek)
     B = 4
     a_vals = rng.integers(0, 4, B)
@@ -203,7 +203,7 @@ def test_bristol_two_bit_adder(tiny_key, rng):
 
 def test_bristol_const_inv_mux(tiny_key, rng):
     """EQ constants, INV, and the Bristol MUX convention."""
-    from cufhe_tpu.runtime.bristol import compile_bristol
+    from cufhe_jax.runtime.bristol import compile_bristol
     # inputs: s (wire 0), x (wire 1); wires: 2=const1, 3=INV x,
     # out 4 = MUX(s, const1, INV x) = s ? INV x : 1
     text = """\
@@ -216,7 +216,7 @@ def test_bristol_const_inv_mux(tiny_key, rng):
 """
     sched, meta = compile_bristol(text)
     sk, ek = tiny_key
-    from cufhe_tpu.models import Context, decrypt_bits, encrypt_bits
+    from cufhe_jax.models import Context, decrypt_bits, encrypt_bits
     ctx = Context(ek)
     s_bits = np.array([0, 1, 0, 1])
     x_bits = np.array([0, 0, 1, 1])
@@ -228,7 +228,7 @@ def test_bristol_const_inv_mux(tiny_key, rng):
 
 
 def test_bristol_rejects_cyclic(tiny_key):
-    from cufhe_tpu.runtime.bristol import compile_bristol
+    from cufhe_jax.runtime.bristol import compile_bristol
     text = """\
 2 4
 1 2
@@ -245,8 +245,8 @@ def test_precompile_and_chunked_execution(tiny_key, rng, monkeypatch):
     precompiled + chunked run must match the plaintext adder exactly, and
     precompile_schedule must cover every shape (no new compiles at run
     time is a perf property checked on hardware; here we check identity)."""
-    from cufhe_tpu.runtime import build_ripple_adder
-    from cufhe_tpu.runtime.executor import precompile_schedule
+    from cufhe_jax.runtime import build_ripple_adder
+    from cufhe_jax.runtime.executor import precompile_schedule
 
     monkeypatch.setenv("CUFHE_EXEC_CHUNK", "2")
     monkeypatch.setenv("CUFHE_FUSE_MAX", "0")   # pin the chunked path
@@ -274,8 +274,8 @@ def test_run_schedule_with_mesh(tiny_key, rng):
     batch sharded over all devices) — kept alongside the donated
     single-device fast path, so it needs its own end-to-end coverage."""
     import jax
-    from cufhe_tpu.parallel.mesh import data_mesh
-    from cufhe_tpu.runtime import build_ripple_adder
+    from cufhe_jax.parallel.mesh import data_mesh
+    from cufhe_jax.runtime import build_ripple_adder
 
     sk, ek = tiny_key
     mesh = data_mesh()
@@ -303,8 +303,8 @@ def test_neg_variant_table_is_boolean_correct():
     table the native kNegVar mirrors)."""
     import itertools
 
-    from cufhe_tpu.golden import PLAIN_GATES
-    from cufhe_tpu.runtime.graph import NEG_VARIANT
+    from cufhe_jax.golden import PLAIN_GATES
+    from cufhe_jax.runtime.graph import NEG_VARIANT
     for op, (v0, v1) in NEG_VARIANT.items():
         for a, b in itertools.product((0, 1), repeat=2):
             assert PLAIN_GATES[op](1 - a, b) == PLAIN_GATES[v0](a, b)
@@ -358,7 +358,7 @@ def test_optimizer_native_and_python_agree():
                                      int(rng.choice(wires)),
                                      int(rng.choice(wires))))
             else:
-                from cufhe_tpu.runtime.graph import OPS_2IN
+                from cufhe_jax.runtime.graph import OPS_2IN
                 op = OPS_2IN[int(rng.integers(0, len(OPS_2IN)))]
                 wires.append(cb.gate(op, int(rng.choice(wires)),
                                      int(rng.choice(wires))))
@@ -379,7 +379,7 @@ def test_optimizer_bit_exact_encrypted(tiny_key, rng):
     unoptimized schedules must produce BIT-identical output ciphertexts:
     the variant gates' linear constants apply exactly the sign the
     absorbed NOT would have (graph.py NEG_VARIANT)."""
-    from cufhe_tpu.runtime.executor import simulate_schedule
+    from cufhe_jax.runtime.executor import simulate_schedule
 
     def build():
         cb = CircuitBuilder()
@@ -441,7 +441,7 @@ def test_fused_small_circuit_matches_stepped(tiny_key, rng, monkeypatch):
     chunked step path bit-for-bit — same gates, same order, one program."""
     import jax
 
-    from cufhe_tpu.runtime import build_ripple_adder
+    from cufhe_jax.runtime import build_ripple_adder
 
     sk, ek = tiny_key
     nbits, B = 4, 3
@@ -470,7 +470,7 @@ def test_run_schedule_loop_with_consts(tiny_key, rng):
     """Scanned feedback loop over a circuit with const wires: the consts
     are re-presented every iteration, and the result is bit-identical to
     the per-cycle run_schedule loop."""
-    from cufhe_tpu.runtime import CircuitBuilder, run_schedule_loop
+    from cufhe_jax.runtime import CircuitBuilder, run_schedule_loop
 
     sk, ek = tiny_key
     ctx = Context(ek)
@@ -502,7 +502,7 @@ def test_run_schedule_loop_segmented_bitexact(tiny_key, rng):
     dispatches) is bit-identical to the single-scan program — the split
     long multi-cycle runs need where the environment bounds per-dispatch
     duration (CUFHE_LOOP_SEG; the bench rig kills executions past ~65 s)."""
-    from cufhe_tpu.runtime import CircuitBuilder, run_schedule_loop
+    from cufhe_jax.runtime import CircuitBuilder, run_schedule_loop
 
     sk, ek = tiny_key
     ctx = Context(ek)

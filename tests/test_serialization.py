@@ -4,10 +4,10 @@ SURVEY.md §5)."""
 import numpy as np
 import pytest
 
-from cufhe_tpu import golden as G
-from cufhe_tpu import params as P
-from cufhe_tpu.models import Context, decrypt_bits, encrypt_bits
-from cufhe_tpu.utils import serialization as S
+from cufhe_jax import golden as G
+from cufhe_jax import params as P
+from cufhe_jax.models import Context, decrypt_bits, encrypt_bits
+from cufhe_jax.utils import serialization as S
 
 
 def test_eval_key_roundtrip(tmp_path, tiny_key):
@@ -44,7 +44,7 @@ def test_server_without_secret_key(tmp_path, tiny_key, rng):
     ek2 = S.load_eval_key(ekp)
     data, level = S.load_ciphertexts(ctp)
     ctx = Context(ek2)
-    from cufhe_tpu.models.api import Ctxt
+    from cufhe_jax.models.api import Ctxt
     import jax.numpy as jnp
     ct = Ctxt(jnp.asarray(data), level)
     out = ctx.nand(ct, ct)

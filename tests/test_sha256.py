@@ -9,9 +9,9 @@ import hashlib
 import numpy as np
 import pytest
 
-from cufhe_tpu.runtime import netlists as NL
-from cufhe_tpu.runtime.bristol import compile_bristol
-from cufhe_tpu.runtime.executor import allocate_slots, simulate_schedule
+from cufhe_jax.runtime import netlists as NL
+from cufhe_jax.runtime.bristol import compile_bristol
+from cufhe_jax.runtime.executor import allocate_slots, simulate_schedule
 
 
 def test_adders_and_pad():
